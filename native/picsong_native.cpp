@@ -1,11 +1,11 @@
-// Native host runtime for PICSONG-TPU: codestream relocation and frame IO.
+// Native host runtime for PICSONG: codestream relocation and frame IO.
 //
-// The device side of the codec is JAX/XLA/Pallas; this library is the
+// The device side of the codec is JAX/XLA; this library is the
 // native equivalent of the reference's host runtime around it — the
 // BitStreamBuilder relocation (BitStreamBuilder/BitStreamBuilder.cu, which
 // the reference runs as GPU kernels plus a CUB prefix sum) and the
 // IOManager frame loader with mirror padding (IO/IOManager.ipp:72-112).
-// Both are memory-bound host transforms on the TPU build, so they are
+// Both are memory-bound host transforms here, so they are
 // implemented in C++ and exposed through a C ABI consumed via ctypes
 // (no pybind11 dependency).
 //

@@ -1,6 +1,6 @@
 """Codestream relocation: dense pack/unpack of per-codeblock streams.
 
-TPU-first rework of BitStreamBuilder (BitStreamBuilder/BitStreamBuilder.cu):
+Whole-array rework of BitStreamBuilder (BitStreamBuilder/BitStreamBuilder.cu):
 the reference needs a CUB prefix sum, a 256-entry binary-search index LUT
 and a relocation kernel because each GPU thread hunts for its source word.
 The packed layout itself is a plain prefix-sum addressing scheme —

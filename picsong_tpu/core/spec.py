@@ -42,8 +42,8 @@ BIT_REFINEMENT = 29         # refinement-eligible (significant in a previous pla
 BITPLANE_SHIFT = 24         # bits 24..28 store the plane where it became significant
 MAGNITUDE_MASK = 0xFFFFFF   # low 24 bits: (|v| << 1) | sign
 
-# DWT overlap depths (DWTGenerator.cuh:28-29) — in the TPU build these are
-# halo widths for sharded lifting, not per-warp overlaps.
+# DWT overlap depths (DWTGenerator.cuh:28-29) — here these are halo
+# widths for sharded lifting, not per-warp overlaps.
 OVERLAP_LOSSLESS = 4
 OVERLAP_LOSSY = 8
 

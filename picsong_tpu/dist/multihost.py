@@ -22,7 +22,7 @@ only global values are the static bitplane bound (derived per-host from
 its first frame, validated per-stream by check_planes_bound) and the
 part lengths (exchanged through the filesystem at merge time). Image-mode
 tile sharding (ShardedCodec) runs over the global mesh instead, where
-GSPMD inserts the halo collectives over ICI/DCN.
+GSPMD inserts the halo collectives between devices and hosts.
 
 Scaling efficiency is computed from per-host wall times:
   efficiency = T_1 / (N * max_h T_h)   for the same total frame count.
@@ -47,7 +47,14 @@ def init_distributed(coordinator_address: str | None = None,
     Returns (process_id, num_processes). With no arguments and no
     JAX_COORDINATOR_ADDRESS in the environment this is a single-process
     no-op returning (0, 1) — the same code path then works on a laptop,
-    a single TPU VM, and a pod slice."""
+    a single GPU host, and a cluster.
+
+    This starts one process per call and pins no device. On a host with
+    several GPUs each process needs its own card: a JAX process reserves
+    most of a card's memory when it first touches it, so start each
+    process with its own CUDA_VISIBLE_DEVICES (e.g. 0, 1, ...). Nothing
+    here discovers a cluster: pass coordinator_address ("host:port"),
+    num_processes and process_id, or set JAX_COORDINATOR_ADDRESS."""
     import jax
 
     coordinator_address = coordinator_address or os.environ.get(

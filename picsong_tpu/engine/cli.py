@@ -32,7 +32,7 @@ from ..core.lut import LUTParams, load_luts, neutral_lut
 from .pipeline import TPUCodec
 from .video import decode_video, encode_video
 
-HELP = """PICSONG-TPU codec. Options (reference-compatible):
+HELP = """PICSONG codec. Options (reference-compatible):
   -h                 show this help
   -cd [0|1]          0 = encode, 1 = decode (required)
   -i FILE            input file (.pgm or planar RAW for encode)

@@ -1,10 +1,12 @@
 """ctypes bindings for the native host runtime (native/picsong_native.cpp).
 
-The shared library is built on demand with `make` (g++). Every entry point
-has a NumPy fallback, so the framework works without a toolchain; the
-native path is preferred for large frames (the relocation is memory-bound
-host work — the TPU-side analogue of the reference's BitStreamBuilder GPU
-kernels + CUB prefix sum).
+The shared library is built from the tracked source by `make` (g++) at
+first use in each process; make is a no-op when the library is newer than
+its source, so a stale binary is always rebuilt. Every entry point has a
+NumPy fallback, so the framework works without a toolchain; the native
+path is preferred for large frames (the relocation is memory-bound host
+work — here on the host, where the reference runs its BitStreamBuilder
+GPU kernels + CUB prefix sum).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import warnings
 
 import numpy as np
 
@@ -29,9 +32,8 @@ def _load():
         return _lib
     _tried = True
     try:
-        if not os.path.exists(_LIB_PATH):
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True)
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True)
         lib = ctypes.CDLL(_LIB_PATH)
         lib.picsong_stream_length.restype = ctypes.c_int64
         lib.picsong_stream_length.argtypes = [
@@ -50,7 +52,11 @@ def _load():
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
         _lib = lib
-    except Exception:
+    except Exception as e:                              # noqa: BLE001
+        detail = getattr(e, "stderr", b"") or b""
+        warnings.warn(f"native library unavailable, using the NumPy "
+                      f"relocation: {e} {detail.decode(errors='replace')}"
+                      .strip(), RuntimeWarning, stacklevel=2)
         _lib = None
     return _lib
 

@@ -3,7 +3,7 @@
 The reference instruments every pipeline stage with NVTX ranges and prints
 wall-clock accumulators (SupportFunctions::markInitProfilerCPUSection,
 AuxiliarFunctions.cpp:58-68; timers across CodingEngine/DecodingEngine).
-TPU equivalents:
+Equivalents here:
 
 - `stage(name)` — a context manager that accumulates wall-clock per stage
   and opens a `jax.profiler.TraceAnnotation` so stages show up in Perfetto

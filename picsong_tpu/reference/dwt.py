@@ -6,7 +6,7 @@ overlap/2 samples per side, which makes the result *identical* to a
 full-plane lifting transform with symmetric boundary extension (the lifting
 dependency depth is 2 for 5/3 and 4 for 9/7, exactly the discarded margin).
 We therefore implement the mathematically-equal full-plane form — the
-natural shape for TPU vector units — and keep the reference's exact
+natural shape for whole-array vector code — and keep the reference's exact
 arithmetic:
 
 - 5/3 integer lifting with arithmetic-shift rounding

@@ -1,10 +1,10 @@
-"""JAX DWT: full-plane CDF 5/3 and 9/7 lifting, jit-compiled for TPU.
+"""JAX DWT: full-plane CDF 5/3 and 9/7 lifting, jit-compiled by XLA.
 
-TPU-first design: the reference's overlapped 64x18 register blocks with
-warp-shuffle exchanges (DWT/DWTGenerator.cu) are a GPU register-file
-artifact; the mathematically identical formulation is a full-plane lifting
-transform with symmetric boundary extension, which maps onto the TPU VPU as
-a handful of large fused elementwise passes (see reference/dwt.py for the
+The reference's overlapped 64x18 register blocks with warp-shuffle
+exchanges (DWT/DWTGenerator.cu) are a register-file artifact; the
+mathematically identical formulation is a full-plane lifting transform
+with symmetric boundary extension, which XLA compiles into a handful of
+large fused elementwise passes (see reference/dwt.py for the
 equivalence argument and the arithmetic contract). Levels are unrolled at
 trace time; every shape is static, so XLA fuses each lifting step chain
 into a few kernels.
@@ -81,9 +81,8 @@ def _inv97(s: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
 # Horizontal pass, transpose-free: even/odd columns come from a lane-axis
 # deinterleave (reshape (H, W/2, 2)) and neighbor exchange is a lane shift.
 # Same arithmetic per element as the transposed formulation (bit-identical
-# output), but XLA:TPU lowers it without the 4 relayout copies per level —
-# measured 2026-08-20 on the real chip (tools/dwt_probe.py, 2048^2 wl=5):
-# fwd 0.027 vs 0.035 ms, rev 0.046 vs 0.082 ms median.
+# output) without the 4 transposes per level. Chosen on an earlier
+# accelerator; unmeasured against the transposed form on the GPU.
 
 def _split_l(x: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     h, w = x.shape

@@ -160,7 +160,7 @@ def test_batched_video_lossy(tmp_path):
 def test_sharded_video_matches_single_device(tmp_path):
     """Frame-DP video over the mesh (devices=4) must emit bytes identical
     to the single-device batched engine, from the product encode_video
-    surface (VERDICT r2 missing #2 / BASELINE config 4)."""
+    surface (BASELINE config 4)."""
     rng = np.random.default_rng(7)
     frames = [make_image(rng, 64, 128) for _ in range(8)]
     raw = str(tmp_path / "v.raw")
@@ -186,6 +186,49 @@ def test_sharded_video_matches_single_device(tmp_path):
         assert np.array_equal(read_raw_frame(dec, 128, 64, i), fr)
 
 
+def test_sharded_video_reencode_dispatch_is_serialized(tmp_path, monkeypatch):
+    """Noise overflows the dense-pack bucket, so the downloader thread
+    re-encodes while the compute loop dispatches the next batch. On a mesh
+    both dispatch collective-bearing programs, so they must never overlap
+    (overlapping launches can reach the devices in different orders and
+    deadlock the collectives); the bytes still equal one device's."""
+    import threading
+    import time
+    from picsong_tpu.engine.batch import BatchCodec
+
+    rng = np.random.default_rng(9)
+    raw = str(tmp_path / "v.raw")
+    with open(raw, "wb") as f:
+        f.write(rng.integers(0, 256, size=(8, 64, 64), dtype=np.uint8)
+                .tobytes())
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=1, frames=8)
+    lut = neutral_lut(PARAMS, 1, 2)
+    orig = BatchCodec.encode_batch_packed
+    state = {"active": 0, "peak": 0, "threads": set()}
+    guard = threading.Lock()
+
+    def spy(self, *args, **kwargs):
+        with guard:
+            state["active"] += 1
+            state["peak"] = max(state["peak"], state["active"])
+            state["threads"].add(threading.current_thread().name)
+        time.sleep(0.05)               # widen any overlap window
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            with guard:
+                state["active"] -= 1
+
+    enc1, encN = str(tmp_path / "single.enc"), str(tmp_path / "sharded.enc")
+    encode_video(raw, enc1, cfg, [lut], PARAMS, frames=8, batch=4)
+    monkeypatch.setattr(BatchCodec, "encode_batch_packed", spy)
+    encode_video(raw, encN, cfg, [lut], PARAMS, frames=8, batch=4, devices=4)
+    assert len(state["threads"]) == 2        # the downloader did re-encode
+    assert state["peak"] == 1
+    with open(enc1, "rb") as f1, open(encN, "rb") as fN:
+        assert f1.read() == fN.read()
+
+
 def test_cli_sharded_video_roundtrip(tmp_path):
     """-video 1 -sharded N end-to-end through the CLI."""
     rng = np.random.default_rng(8)
@@ -209,7 +252,7 @@ def test_cli_sharded_video_roundtrip(tmp_path):
 
 def test_video_reader_error_fails_fast(tmp_path):
     """A truncated input must raise promptly instead of deadlocking the
-    compute loop on a dead reader thread (VERDICT r2 weak #6)."""
+    compute loop on a dead reader thread."""
     import pytest
     rng = np.random.default_rng(9)
     frames = [make_image(rng, 64, 64) for _ in range(2)]
@@ -227,8 +270,8 @@ def test_video_reader_error_fails_fast(tmp_path):
 
 @pytest.mark.parametrize("bpc_mode", ["staged", "fused"])
 def test_video_bpc_modes_byte_identical(tmp_path, monkeypatch, bpc_mode):
-    """PICSONG_VIDEO_BPC={staged,fused} must emit identical file bytes
-    (ADVICE r2 low: FusedBPC had no gate against silent regression)."""
+    """PICSONG_VIDEO_BPC={staged,fused} must emit identical file bytes,
+    so neither coder can regress silently."""
     monkeypatch.setenv("PICSONG_VIDEO_BPC", bpc_mode)
     monkeypatch.setenv("PICSONG_VIDEO_PACK", "off")
     rng = np.random.default_rng(10)           # same content for both params

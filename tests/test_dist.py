@@ -54,6 +54,18 @@ def test_sharded_mono_path_matches_single_device(monkeypatch):
     assert np.array_equal(sharded.decode([got]), img)
 
 
+def test_sharded_unknown_coder_mode_raises(monkeypatch):
+    """PICSONG_SHARDED_BPC goes through the same validated selector as the
+    single-device coder: an unknown name raises instead of running staged."""
+    monkeypatch.setenv("PICSONG_SHARDED_BPC", "pallas")
+    cfg = CodecConfig(width=64, height=128, wavelet_levels=1)
+    sharded = ShardedCodec(cfg, [neutral_lut(PARAMS, 1, 2)], PARAMS,
+                           make_mesh(2))
+    img = make_image(np.random.default_rng(8), 128, 64)
+    with pytest.raises(ValueError, match="PICSONG_SHARDED_BPC"):
+        sharded.encode(img)
+
+
 def test_sharded_decode_roundtrip():
     mesh = make_mesh(2)
     rng = np.random.default_rng(1)
@@ -107,7 +119,7 @@ def test_frame_parallel_uneven_content():
 
 def test_sharded_rgb_lossless_full_codestream():
     """ShardedCodec RGB file-level round trip, bit-identical streams to the
-    single-device engine (VERDICT r1 weak #3)."""
+    single-device engine."""
     mesh = make_mesh(2)
     rng = np.random.default_rng(4)
     planes = [make_image(rng, 128, 64) for _ in range(3)]
@@ -144,8 +156,7 @@ def test_sharded_lossy_roundtrip():
 @pytest.mark.parametrize("bps,signed", [(12, False), (16, False), (16, True)])
 def test_sharded_highdepth_matches_single(bps, signed):
     """ShardedCodec must honor the sample type (>8-bit / signed) exactly
-    like TPUCodec — the r2 sharded path silently truncated to uint8
-    (ADVICE r2 high)."""
+    like TPUCodec, never truncating to uint8."""
     mesh = make_mesh(2)
     rng = np.random.default_rng(20 + bps + signed)
     if signed:
@@ -192,7 +203,7 @@ def test_sharded_uneven_rows_match_single():
     """A 1080p-class adapted height (1088 = 17 codeblock rows) must
     row-shard over 8 devices — 17 is not a multiple of 8, so GSPMD pads
     the shards internally — with codestream bytes identical to the
-    single-device engine (VERDICT r3 weak #3)."""
+    single-device engine."""
     mesh = make_mesh(8)
     rng = np.random.default_rng(22)
     img = make_image(rng, 1080, 128)          # adapted height 1088

@@ -110,11 +110,10 @@ def test_engine_rgb_lossy_quality():
         assert psnr > 30.0, f"PSNR {psnr:.2f}"
 
 
-@pytest.mark.parametrize("mode", ["staged", "mono", "pallas"])
+@pytest.mark.parametrize("mode", ["staged", "mono"])
 def test_engine_modes_lossless_bitexact(mode, monkeypatch):
-    """Every kernel path (staged XLA / monolithic XLA / Pallas Mosaic) must
-    emit the oracle's exact bytes — whichever is default cannot silently
-    diverge (VERDICT r1 weak #6/#8)."""
+    """Every coder path (staged / monolithic) must emit the oracle's exact
+    bytes, so whichever is default cannot silently diverge."""
     monkeypatch.setenv("PICSONG_ENCODER", mode)
     monkeypatch.setenv("PICSONG_DECODER", mode)
     rng = np.random.default_rng(11)
@@ -159,8 +158,8 @@ def test_engine_lossy_matches_oracle():
 
 def test_underestimated_plane_bound_fails_loudly():
     """An n_planes bound below the true MSB must raise, not silently emit a
-    stream with uncoded high bitplanes (VERDICT r1 weak #2: the lossy
-    `max_mag *= 2` margin had no device-side guard)."""
+    stream with uncoded high bitplanes (the lossy `max_mag *= 2` margin
+    is a host-side guess, so the device-side MSB check must catch it)."""
     from picsong_tpu.entropy import bpc_jax
     rng = np.random.default_rng(7)
     img = make_image(rng, 64, 64)
@@ -248,8 +247,7 @@ def test_large_geometry_chunked_roundtrip():
 
 def test_staged_pair_bitexact(monkeypatch):
     """PICSONG_STAGED_PAIR=1 runs SPP+MRP as ONE program per bitplane
-    (halves dispatches in the small-image, dispatch-bound regime,
-    PERF_NOTES.md). Bytes must equal the oracle's and the split schedule's
+    (halves dispatches). Bytes must equal the oracle's and the split schedule's
     exactly; the round trip must be bit-exact."""
     rng = np.random.default_rng(17)
     img = make_image(rng, 64, 128)
@@ -350,3 +348,21 @@ def test_unpack_dense_matches_host_layout():
         n = int(sizes[i])
         assert np.array_equal(got[i, :n], want_full[i, :n])
         assert np.all(got[i, n:] == -1)
+
+
+@pytest.mark.parametrize("var,value", [("PICSONG_ENCODER", "pallas"),
+                                       ("PICSONG_DECODER", "bogus")])
+def test_unknown_coder_mode_raises(var, value, monkeypatch):
+    """An unknown coder name fails loudly, naming the valid modes, instead
+    of silently running another coder."""
+    rng = np.random.default_rng(13)
+    img = make_image(rng, 64, 64)
+    cfg = CodecConfig(width=64, height=64, wavelet_levels=1)
+    codec = TPUCodec(cfg, [neutral_lut(PARAMS, 1, 2)], PARAMS)
+    streams = codec.encode(img)
+    monkeypatch.setenv(var, value)
+    with pytest.raises(ValueError, match="staged, mono"):
+        if var == "PICSONG_ENCODER":
+            codec.encode(img)
+        else:
+            codec.decode(streams)

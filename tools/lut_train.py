@@ -246,7 +246,7 @@ def probabilities(counts: np.ndarray) -> np.ndarray:
     the previous total<16 cutoff wasted exactly the deep-level /
     high-plane cells where the upstream reference tables still carried
     signal (QUALITY.md r3: trained lost to reference by ~0.4% bpp on the
-    natural image; measured win from this estimator in PERF_NOTES.md).
+    natural image before this estimator).
     Unseen cells (no events at all) stay at neutral 64."""
     c0 = counts[..., 0].astype(np.float64) + 0.5
     c1 = counts[..., 1].astype(np.float64) + 0.5
